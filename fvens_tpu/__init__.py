@@ -1,7 +1,7 @@
-"""fvens_tpu: a TPU-native unstructured finite-volume solver for the 2D
-compressible Euler and Navier-Stokes equations.
+"""fvens_tpu: a JAX unstructured finite-volume solver for the 2D
+compressible Euler and Navier-Stokes equations, run on a GPU.
 
-A ground-up JAX/XLA/Pallas re-design with the capabilities of the FVENS
+A ground-up JAX/XLA re-design with the capabilities of the FVENS
 reference solver (cell-centred FV, hybrid tri/quad meshes, explicit and
 implicit pseudo-time continuation). The unstructured mesh is compiled once
 on the host into static, padded structure-of-arrays index maps; all numerics
@@ -11,7 +11,7 @@ run as jitted, shape-static JAX kernels on device:
   - atomic scatters   -> per-cell incidence gathers (deterministic sums)
   - hand-written flux/BC Jacobians -> jax.jacfwd of the flux kernels
   - PETSc Krylov + ILU -> native FGMRES with block-structured preconditioners
-  - MPI domain decomposition -> jax.sharding/shard_map halo exchange over ICI
+  - MPI domain decomposition -> jax.sharding/shard_map halo exchange
 
 Reference layer map: see SURVEY.md (FVENS, /root/reference).
 """

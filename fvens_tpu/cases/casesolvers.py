@@ -169,6 +169,10 @@ class DistributedFlowCase:
 
         from ..dist import ShardedFlow, partition_mesh
         devices = list(jax.devices())
+        if self.n_devices > len(devices):
+            raise ValueError(
+                f"DistributedFlowCase: {self.n_devices} devices requested, "
+                f"{len(devices)} visible ({devices[0].platform})")
         if self.n_devices:
             devices = devices[: self.n_devices]
         bundle = partition_mesh(md, self.cfg.bcs, len(devices))

@@ -1,7 +1,7 @@
 """fvens_steady-equivalent CLI.
 
 Usage:  python -m fvens_tpu.cases.cli case.ctrl [--mesh_file m.msh]
-            [--platform cpu|tpu] [--f32] [--vtu out.vtu]
+            [--platform cpu|gpu] [--f32] [--vtu out.vtu]
 
 Mirrors the reference driver (FVENS src/fvens_steady.cpp:15-57): parse the
 control file, build the mesh, free-stream init, starter + main solve, then
@@ -23,11 +23,11 @@ def main(argv=None) -> int:
     ap.add_argument("-options_file", "--options_file", default=None,
                     help="PETSc-style .solverc options file (the reference's "
                          "-options_file flag): ksp/pc settings are mapped "
-                         "onto the TPU-native linear solver")
+                         "onto this solver's linear stack")
     ap.add_argument("--platform", default=None,
-                    help="jax platform override (cpu, tpu, ...)")
+                    help="jax platform override (cpu, gpu)")
     ap.add_argument("--f32", action="store_true",
-                    help="solve in float32 (TPU-native precision)")
+                    help="solve in float32")
     ap.add_argument("--vtu", default=None, help="write VTU solution here")
     ap.add_argument("--surface", default=None,
                     help="write wall surface data (x y Cp Cf) here")
@@ -56,8 +56,7 @@ def main(argv=None) -> int:
     ap.add_argument("--pipeline", action="store_true",
                     help="software-pipelined host stepping: dispatch step "
                          "k+1 before fetching step k's residual (hides the "
-                         "per-step host round trip on remote/tunnelled "
-                         "accelerators; trajectory-identical)")
+                         "per-step host round trip; trajectory-identical)")
     ap.add_argument("--log_every", type=int, default=10)
     args = ap.parse_args(argv)
 
@@ -66,6 +65,12 @@ def main(argv=None) -> int:
         jax.config.update("jax_platforms", args.platform)
     import jax.numpy as jnp
     import numpy as np
+
+    from ..compile_cache import enable_compile_cache
+    enable_compile_cache()
+    dev = jax.devices()[0]
+    print(f"fvens_tpu: running on {dev.platform} ({dev.device_kind}), "
+          f"{len(jax.devices())} device(s)")
 
     from ..io_config import parse_control_file, write_vtu
     from ..mesh.reader import read_mesh

@@ -4,7 +4,7 @@ Equivalent of the reference's threads_async perftest (FVENS
 perftest/threads_async.cpp:5-18, threads_async_tests.cpp:102-330): sweep the
 preconditioner configuration grid (kind x sweep counts x Krylov budget),
 repeat each solve, and report averaged wall times and iteration counts.
-On TPU the sweep axis is (preconditioner, color-sweeps) instead of
+Here the sweep axis is (preconditioner, color-sweeps) instead of
 (threads, async build/apply sweeps).
 
 Usage: python -m fvens_tpu.cases.perftest case.ctrl [--mesh_file m.msh]
@@ -38,9 +38,11 @@ def main(argv=None) -> int:
         jax.config.update("jax_platforms", args.platform)
     import jax.numpy as jnp
 
+    from ..compile_cache import enable_compile_cache
     from ..config import LinearSolverConfig
     from ..io_config import parse_control_file
     from .casesolvers import SteadyFlowCase, load_case_mesh
+    enable_compile_cache()
 
     cfg0 = parse_control_file(args.control_file, mesh_file=args.mesh_file)
     dtype = jnp.float32 if args.f32 else jnp.float64

@@ -456,8 +456,8 @@ def partition_mesh(md: MeshData, bcs, nparts: int, dtype=jnp.float64,
 
 def halo_schedule_stats(bundle: ShardedMeshBundle, value_bytes: int = 4,
                         nvars: int = 4) -> dict:
-    """Comm-volume accounting of the edge-coloured ppermute schedule
-    (VERDICT r4 next #8): per-exchange message count and payload bytes,
+    """Comm-volume accounting of the edge-coloured ppermute schedule:
+    per-exchange message count and payload bytes,
     cross-checked against the partition's halo/edge-cut. The scheduled
     send volume must equal the total halo size EXACTLY — every ghost cell
     is delivered by exactly one (owner -> user) message per exchange round

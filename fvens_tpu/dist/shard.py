@@ -3,7 +3,8 @@
 The reference's MPI layer (ghosted PETSc Vecs + L2TraceVector Isend/Irecv +
 MPI_Allreduce, SURVEY.md sec 2.9) maps to:
 
-  forward halo INSERT  -> all_gather of packed boundary-cell buffers over ICI
+  forward halo INSERT  -> all_gather of packed boundary-cell buffers
+                          over the device interconnect
                           + static gather into local halo slots
   reverse halo ADD     -> unnecessary: cross-partition faces are computed
                           redundantly by both owners (like the reference's
@@ -24,6 +25,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..solver.steady import SteadyBackwardEuler
+from ..solver.precision import einsum
 from .partition import ShardedMeshBundle
 
 AXIS = "mesh_x"
@@ -263,7 +265,7 @@ class DistMesh:
 
 @dataclasses.dataclass
 class DistributedBackwardEuler(SteadyBackwardEuler):
-    """Distributed implicit solver at single-chip parity (VERDICT r2 #5).
+    """Distributed implicit solver at single-chip parity.
 
     REUSES the SteadyBackwardEuler host controller by inheritance — the
     exp/linear CFL ramp + trust-region cap, the Krylov forcing controller
@@ -290,8 +292,8 @@ class DistributedBackwardEuler(SteadyBackwardEuler):
             raise NotImplementedError(
                 f"pc={self.lin.pc!r} has no distributed form (stacking the "
                 "per-part line/hierarchy structures needs cross-part shape "
-                "padding, and both measured slower than bsgs on TPU — "
-                "docs/BENCH_NOTES.md); use bjacobi/bsgs/bcsgs/ilu0 "
+                "padding, and neither has beaten bsgs on a single "
+                "device); use bjacobi/bsgs/bcsgs/ilu0 "
                 "(shard-local additive Schwarz), optionally banded, "
                 "matrix-free, warm_start or deflation_k")
         if self.cfg.device_steps > 1:
@@ -406,7 +408,7 @@ class DistributedBackwardEuler(SteadyBackwardEuler):
                 bl_loc = jax.tree_util.tree_map(lambda x: x[0], bl_st)
                 Dinv_b = block_jacobi_inverse(jac.D)
                 if lin.pc == "bjacobi":
-                    pc = lambda v: jnp.einsum("cij,cj->ci", Dinv_b, v)
+                    pc = lambda v: einsum("cij,cj->ci", Dinv_b, v)
                 else:
                     pc = make_banded_bsgs(
                         Dinv_b, banded_dn_blocks(bl_loc, Dinv_b, jac.N),

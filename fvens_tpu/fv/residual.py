@@ -1,6 +1,6 @@
 """The flow residual: one fused gather -> pointwise -> gather-sum pipeline.
 
-TPU-native rewrite of FlowFV::compute_residual (FVENS
+Data-parallel rewrite of FlowFV::compute_residual (FVENS
 src/spatial/flow_spatial.cpp:636-816), preserving the reference's exact
 operation order for second-order accuracy:
 
@@ -178,8 +178,7 @@ class FlowFV:
             return rhs * mesh.cell_mask[:, None], None
 
         # pack flux + the two per-side spectral radii into ONE face payload
-        # so the per-cell incidence gather happens once (the gather is the
-        # dominant cost of this kernel on TPU)
+        # so the per-cell incidence gather happens once
         si, sj = self._face_spectral_radii(mesh, uL, uR)
         payload = jnp.concatenate(
             [fluxlen, si[:, None], sj[:, None]], axis=1)         # (NF,6)

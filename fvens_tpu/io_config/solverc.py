@@ -7,8 +7,8 @@ test case carries a .solverc next to its .ctrl; consuming it means the
 reference cases run with their INTENDED solver settings, not this repo's
 defaults.
 
-Mapping policy: PETSc/BLASTed names are translated to the TPU-native
-equivalent CLASS of each setting (measured equivalents, docs/BENCH_NOTES.md),
+Mapping policy: PETSc/BLASTed names are translated to this solver's
+equivalent CLASS of each setting (measured equivalents),
 not emulated verbatim:
 
   -ksp_type fgmres          -> the (only) Krylov method, FGMRES
@@ -18,7 +18,7 @@ not emulated verbatim:
   -ksp_max_it N             -> maxiter = N
   -ksp_gmres_restart M      -> restart = M (PETSc default 30)
   -pc_type bjacobi + -sub_pc_type ilu   -> pc='bsgs' sweeps 6 (the measured
-                               TPU equivalent of bjacobi+ILU0 strength)
+                               stand-in for bjacobi+ILU0 strength)
   -sub_pc_type sor          -> pc='bcsgs' (multicolor symmetric GS)
   -blasted_pc_type sgs/ilu0 -> bcsgs / bsgs likewise
   -pc_type gamg (+ -pc_mg_levels L, -mg_levels_ksp_max_it nu,
@@ -34,7 +34,7 @@ not emulated verbatim:
                                fd_eps=E) — the PETSc MATSHELL of
                                alinalg.cpp:124-233
   -mat_type / -options_left / -blasted_thread_* / -benchmark_* -> ignored
-    (storage is always slot-block BSR; no threads on TPU)
+    (storage is always slot-block BSR; no host threads)
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ def parse_solverc(path: str) -> dict:
     return opts
 
 
-#: PETSc/BLASTed option names that have no TPU-side meaning and are
+#: PETSc/BLASTed option names that have no meaning here and are
 #: accepted silently.
 _IGNORED_PREFIXES = (
     "mat_type", "options_left", "ksp_converged_reason", "log_view",
@@ -127,8 +127,7 @@ def apply_solver_options(opts: dict,
         if sub_pc == "shell" and blasted:
             sub_pc = blasted        # BLASTed plugged in as the sub-PC
         if sub_pc in ("ilu", "ilu0"):
-            # measured TPU equivalent of bjacobi+ILU0 strength
-            # (docs/BENCH_NOTES.md round-2 preconditioner study)
+            # measured stand-in for bjacobi+ILU0 strength
             updates["pc"] = "bsgs"
             updates["pc_sweeps"] = 6
         elif sub_pc in ("sor", "sgs"):

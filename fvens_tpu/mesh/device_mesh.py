@@ -1,8 +1,8 @@
 """The device mesh: unstructured topology compiled to static padded SoA arrays.
 
-This is the central representational decision of the TPU rebuild: the mesh is
+This is the central representational decision of the rebuild: the mesh is
 compiled ONCE on the host (NumPy) into flat index maps and geometric
-coefficient arrays, padded to lane-friendly sizes; all numerics then run as
+coefficient arrays, padded to fixed sizes; all numerics then run as
 shape-static jitted JAX kernels:
 
     gather cell states by (f_left, f_right)
@@ -44,8 +44,8 @@ def greedy_coloring(cell_nbrs: np.ndarray, nbr_mask: np.ndarray,
     (color_rows (n_colors, max_rows) int32 padded with NC-1,
      color_counts (n_colors,), n_colors).
 
-    Drives the multicolor block-SGS preconditioner - the TPU answer to the
-    reference's sequential ILU0/SGS sweeps (PETSc bjacobi+ilu and BLASTed
+    Drives the multicolor block-SGS preconditioner - the data-parallel
+    answer to the reference's sequential ILU0/SGS sweeps (PETSc bjacobi+ilu and BLASTed
     async sweeps, SURVEY.md sec 2.9 item 3): cells of one color share no
     faces, so a whole color updates in one batched step.
     """

@@ -1,6 +1,6 @@
 """Native (C++) host kernels, loaded via ctypes with a NumPy fallback.
 
-The shared library is built on demand with g++ into a per-user cache dir;
+The shared library is built on demand with g++ into `<checkout>/.native_build`;
 if no compiler is available every entry point falls back to the pure-NumPy
 implementation, so the framework never hard-depends on the toolchain.
 """
@@ -24,8 +24,8 @@ _TRIED = False
 def _build_dir() -> str:
     with open(_SRC, "rb") as f:
         tag = hashlib.sha1(f.read()).hexdigest()[:12]
-    d = os.path.join(os.path.expanduser("~"), ".cache", "fvens_tpu",
-                     f"native-{tag}")
+    root = os.path.dirname(os.path.dirname(os.path.dirname(_SRC)))
+    d = os.path.join(root, ".native_build", f"native-{tag}")
     os.makedirs(d, exist_ok=True)
     return d
 
@@ -79,6 +79,11 @@ def _load():
               file=sys.stderr)
         _LIB = None
     return _LIB
+
+
+def available() -> bool:
+    """Whether the C++ kernels loaded (else the NumPy fallbacks run)."""
+    return _load() is not None
 
 
 def greedy_coloring_native(cell_nbrs, nbr_mask, active):

@@ -1,7 +1,7 @@
 // Native mesh-topology kernels for fvens_tpu.
 //
 // The reference implements its entire mesh layer in C++ (FVENS src/mesh/,
-// ~3.4k LoC); the TPU rebuild keeps the host topology compiler native where
+// ~3.4k LoC); the JAX rebuild keeps the host topology compiler native where
 // per-cell Python loops would dominate setup time on large meshes:
 // adjacency coloring (drives the multicolor SGS preconditioner), BFS
 // partition growth (domain decomposition), and the element->face incidence

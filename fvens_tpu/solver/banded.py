@@ -1,21 +1,21 @@
 """Banded (shifted-slice) neighbour encoding for the block linear stack.
 
-The slot-block matvec and the block-Jacobi/SGS sweeps are bound by the
-TPU's unstructured-gather rate (~1 element/ns, docs/BENCH_NOTES.md): every
-Krylov iteration gathers the (NC, slots, V, V) neighbour operand through
+In the slot-block matvec and the block-Jacobi/SGS sweeps, every Krylov
+iteration gathers the (NC, slots, V, V) neighbour operand through
 `cell_nbrs`. On GENERATED structured meshes (the O-mesh families driving
 the large-mesh benchmarks) the neighbour index is almost everywhere
 `cell + d` for a handful of fixed offsets d — e.g. a ni x nj cylinder
 O-mesh in row-major order has exactly SIX offsets: {-nj, -1, +1, +nj} in
 the interior plus the two circumferential seam offsets +-(n_cells - nj),
-covering 100% of the valid slots (measured, docs/BENCH_NOTES.md round 3).
+covering 100% of the valid slots (measured).
 
 When that holds, the per-iteration gather collapses to K contiguous
-`jnp.roll` slices + batched einsums — pure HBM streaming instead of
-element-at-a-time gathers. The reference meets the same need with its RCM
-/ line orderings feeding banded-friendly ILU (FVENS
+`jnp.roll` slices + batched einsums — pure streaming instead of
+element-at-a-time gathers (on the H100 the gather matvec ties it; see
+PERF.md). The reference meets the same need with its RCM / line orderings
+feeding banded-friendly ILU (FVENS
 src/mesh/meshordering.cpp, testcases/defaults.solverc -mesh_reorder rcm);
-here the TPU-native answer is to exploit the band structure directly.
+here the answer is to exploit the band structure directly.
 
 Opt-in via LinearSolverConfig(banded=True): the summation order over
 neighbours differs from the gather path (band order instead of slot
@@ -23,7 +23,7 @@ order), so results agree only to rounding; the default solver path stays
 bit-identical. Falls back to the gather path (structure build returns
 None) whenever the mesh is not band-coverable — e.g. the unstructured
 hybrid NACA meshes, whose offset histogram is too flat (top-64 offsets
-cover 64% after RCM; docs/BENCH_NOTES.md).
+cover 64% after RCM).
 """
 
 from __future__ import annotations
@@ -34,6 +34,8 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from .precision import einsum
 
 
 @partial(jax.tree_util.register_dataclass,
@@ -187,14 +189,12 @@ def banded_blocks(bl: BandedStructure, N):
     band is absent). Paid once per Newton step — it replaces a gather PER
     KRYLOV ITERATION.
 
-    Layout + lowering are deliberate: the cell axis is LAST so the tiny
-    V x V block dims never land in XLA's (sublane, lane) tile. A
-    (K, NC, V, V) take_along_axis here made XLA pick a {minor: V, V}
-    layout padded 4 -> 128 in lanes — a 32x HBM expansion that OOM'd the
-    819.2k-cell compile (16 GB HBM) and silently wasted bandwidth at
-    204.8k. The slot select is a masked sum over the S (<= ~5) slots
-    instead of a gather: S small streamed passes, no scatter/gather at
-    all, NC always in lanes."""
+    The cell axis is LAST, so every per-band operand is a contiguous
+    NC-long stream and the V x V block dims index whole streams. The slot
+    select is a masked sum over the S (<= ~5) slots instead of a gather:
+    S small streamed passes and no scatter/gather. This layout was chosen
+    for an earlier accelerator's tiled memory; whether the plain slot
+    gather does as well on the GPU is ROADMAP S8."""
     S = N.shape[1]
     Nt = jnp.moveaxis(N, 0, -1)                       # (S, V, V, NC)
     vm = bl.valid.astype(N.dtype)                     # (K, NC)
@@ -209,20 +209,18 @@ def banded_blocks(bl: BandedStructure, N):
 def _block_mv(Bt, xt):
     """y[i,c] = sum_j Bt[i,j,c] x[j,c] as a broadcast multiply-reduce.
 
-    Deliberately NOT an einsum: XLA lowers the c-batched 4x4 dot_general by
-    transposing the operand to batch-major, i.e. a {minor: V, V} layout
-    padded (4, 4) -> (8, 128) tiles — a 64x HBM blowup (the round-4
-    cell-minor autopsy's failure mode, which resurfaced in the standalone
-    banded programs and OOM'd the 819.2k probe). The multiply-reduce stays
-    in the NC-lane layout and fuses."""
+    Not an einsum: a c-batched 4x4 dot_general makes XLA transpose the
+    operand to batch-major, while the multiply-reduce keeps the NC-minor
+    layout of banded_blocks and fuses into one loop over the cells. On the
+    H100 this matvec streams within 2x of the copy bandwidth; whether the
+    einsum form would do as well there was not measured (ROADMAP S8)."""
     return (Bt * xt[None, :, :]).sum(axis=1)
 
 
 def banded_dn_blocks(bl: BandedStructure, Dinv, N):
     """Band-reordered (K, V, V, NC) blocks of D^-1 N for the banded bsgs
-    sweeps, WITHOUT materializing the (NC, S, V, V) product (same layout
-    rationale as banded_blocks: the full-size intermediate drew a 32x
-    lane-padded layout from XLA). Select bands from N first (K <= S), then
+    sweeps, WITHOUT materializing the (NC, S, V, V) product (same NC-minor
+    layout as banded_blocks). Select bands from N first (K <= S), then
     multiply by D^-1 in the NC-minor layout (broadcast-sum, not einsum:
     see _block_mv)."""
     Bt = banded_blocks(bl, N)                         # (K, V, V, NC)
@@ -249,13 +247,13 @@ def rest_dn_blocks(bl: BandedStructure, Dinv, N):
     if R is None:
         return None
     c = jnp.minimum(bl.rest_cell, N.shape[0] - 1)
-    return jnp.einsum("rij,rjl->ril", Dinv[c], R)
+    return einsum("rij,rjl->ril", Dinv[c], R)
 
 
 def _rest_apply(bl: BandedStructure, R, x, y, sign=1.0):
     """y += sign * scatter-add of R_r x[rest_nbr_r] at rows rest_cell_r.
     Padding rows carry rest_cell == NC: dropped by the scatter."""
-    contrib = jnp.einsum("rij,rj->ri", R, x[bl.rest_nbr])
+    contrib = einsum("rij,rj->ri", R, x[bl.rest_nbr])
     return y.at[bl.rest_cell].add(sign * contrib, mode="drop")
 
 
@@ -277,8 +275,8 @@ def _shifted_windows(xt, dms, P):
     (zp[:, j] = xt[:, (j - P) mod NC], so zp[:, P+d : P+d+NC] ==
     jnp.roll(xt, -d)). One (V, NC+2P) concat per apply replaces K full
     roll materializations — rolls lower to slice+concat copies of the
-    whole vector, which doubled the HBM traffic of every banded sweep
-    (docs/BENCH_NOTES.md round 5); static slices fuse into the consuming
+    whole vector, which doubled the memory traffic of every banded sweep;
+    static slices fuse into the consuming
     einsums."""
     NC = xt.shape[1]
     if P == 0:
@@ -289,11 +287,11 @@ def _shifted_windows(xt, dms, P):
 
 def make_banded_matvec(D, Bt, offsets, bl=None, R=None):
     """mv(x) = D x + sum_k B_k (x shifted by d_k) [+ rest scatter]: K
-    shifted static slices + lane-batched 4x4 einsums instead of the
-    per-iteration (NC, S) index gather. The whole apply runs transposed —
-    vectors as (V, NC), blocks as (K, V, V, NC) from banded_blocks — so
-    the cell axis stays in XLA's lane dimension and the V x V block dims
-    are never tile-padded (see banded_blocks). Exactly equivalent to the
+    shifted static slices + cell-batched 4x4 multiply-reduces instead of
+    the per-iteration (NC, S) index gather. The whole apply runs
+    transposed — vectors as (V, NC), blocks as (K, V, V, NC) from
+    banded_blocks — so the cell axis stays minor (see banded_blocks and
+    _block_mv). Exactly equivalent to the
     slot-gather matvec up to neighbour summation order (valid-masked
     blocks are zero; wrapped-around window values only ever multiply
     zeros). When the structure carries a rest list (partitioned meshes:
@@ -321,7 +319,7 @@ def make_banded_bsgs(Dinv, DNbt, offsets, sweeps: int, bl=None, DNr=None):
     """Banded form of the pc='bsgs' damped block-Jacobi sweeps
     (solver/linear.py make_preconditioner): z' = D^-1 v - (D^-1 N) z_nbr
     with the neighbour product as shifted static slices (see
-    _shifted_windows), in the same transposed (V, NC) lane layout as
+    _shifted_windows), in the same transposed (V, NC) layout as
     make_banded_matvec. DNbt = banded_dn_blocks; DNr = rest_dn_blocks
     (partitioned meshes; the transposes around the compact rest scatter
     are paid only there)."""

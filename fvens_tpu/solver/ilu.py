@@ -6,7 +6,7 @@ async-sweep variant (perftest/threads_async.cpp) computes the incomplete
 factors by parallel FIXED-POINT SWEEPS instead of the sequential IKJ loop
 (Chow & Patel, "Fine-grained parallel incomplete LU factorization", SISC
 2015 - the algorithm BLASTed implements). That formulation is exactly what
-maps to TPU:
+maps to a data-parallel device:
 
   - factorization: every block-nonzero's ILU0 equation
         L_ij = (A_ij - sum_{k<j} L_ik U_kj) U_jj^{-1}      (i > j)
@@ -34,6 +34,8 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from .precision import einsum
 
 
 class ILUStructure(NamedTuple):
@@ -112,23 +114,23 @@ def ilu_factorize(mesh, jac, st: ILUStructure, sweeps: int = 4):
     Ud = D
     Udinv = block_jacobi_inverse(Ud)
     Us = N * um
-    L = jnp.einsum("caij,cajl->cail", N * lm, Udinv[nbrs])
+    L = einsum("caij,cajl->cail", N * lm, Udinv[nbrs])
 
     for _ in range(sweeps):
         # upper storage incl. the implicit diagonal for the U_kj gather:
         # the (k, j) block with k < j lives in Us; the sb slot indexing is
         # built only over off-diagonal targets, so Us suffices
         Ukj = Us[kk, st.fill_sb] * fm                  # (NC,s,a,V,V)
-        corr = jnp.einsum("caij,csajl->csil", L, Ukj)  # sum over a and j
+        corr = einsum("caij,csajl->csil", L, Ukj)  # sum over a and j
         S = N - corr                                   # (NC,K,V,V)
 
         # diagonal: Ud_c = D_c - sum_{a: nbr<c} L_ca U_{nbr(c,a), c}
         Urev = Us[nbrs, st.rs] * lm                    # (NC,K,V,V)
-        Ud = D - jnp.einsum("caij,cajl->cil", L, Urev)
+        Ud = D - einsum("caij,cajl->cil", L, Urev)
         Udinv = block_jacobi_inverse(Ud)
 
         Us = S * um
-        L = jnp.einsum("caij,cajl->cail", S * lm, Udinv[nbrs])
+        L = einsum("caij,cajl->cail", S * lm, Udinv[nbrs])
 
     return L, Ud, Udinv, Us
 
@@ -149,11 +151,11 @@ def make_ilu_apply(mesh, L, Udinv, Us, sweeps: int = 3):
     def pc(v):
         y = v
         for _ in range(sweeps):
-            y = v - jnp.einsum("ckij,ckj->ci", L, y[nbrs])
-        z = jnp.einsum("cij,cj->ci", Udinv, y)
+            y = v - einsum("ckij,ckj->ci", L, y[nbrs])
+        z = einsum("cij,cj->ci", Udinv, y)
         for _ in range(sweeps):
-            z = jnp.einsum("cij,cj->ci", Udinv,
-                           y - jnp.einsum("ckij,ckj->ci", Us, z[nbrs]))
+            z = einsum("cij,cj->ci", Udinv,
+                           y - einsum("ckij,ckj->ci", Us, z[nbrs]))
         return z
 
     return pc

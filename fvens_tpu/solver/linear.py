@@ -2,14 +2,17 @@
 block preconditioners and a restarted (F)GMRES.
 
 Replaces PETSc (MPIBAIJ + FGMRES(30) + bjacobi/ILU0, FVENS
-src/linalg/alinalg.cpp + testcases/defaults.solverc) with TPU-friendly
-primitives:
+src/linalg/alinalg.cpp + testcases/defaults.solverc) with batched,
+gather-and-contract primitives:
 
   - the Jacobian is stored as face blocks (A = len dF/du_left,
     B = len dF/du_right per face) plus cell diagonal blocks, i.e. exactly the
     4x4-block sparsity of the reference's BAIJ matrix;
-  - the matvec is a per-cell incidence gather + batched 4x4 matmuls (MXU);
-  - Arnoldi orthogonalization is a (m+1, N) x (N,) matmul, also MXU-shaped.
+  - the matvec is a per-cell incidence gather + batched 4x4 contractions;
+  - Arnoldi orthogonalization is a (m+1, N) x (N,) matrix-vector product.
+
+Every float32 product goes through solver/precision.py (HIGHEST), so the
+Krylov numerics do not depend on the device's default matmul precision.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from typing import Callable, NamedTuple
 
 import jax
 import jax.numpy as jnp
+
+from .precision import dot, einsum, matmul
 
 
 class BlockJacobian(NamedTuple):
@@ -49,7 +54,7 @@ def make_bsr_matvec(mesh, jac: BlockJacobian) -> Callable:
     """Returns mv(x) = J x as two device ops (one (NC,5) row gather + one
     batched block einsum): the diagonal joins the neighbour slots as a fifth
     self-pointing slot, so the whole BSR matvec is a single fused
-    contraction on the VPU. The fused (NC,5,V,V) operand is built here,
+    contraction. The fused (NC,5,V,V) operand is built here,
     ONCE per Jacobian — call this outside the Krylov loop."""
     NC = jac.D.shape[0]
     self_idx = jnp.arange(NC, dtype=mesh.cell_nbrs.dtype)
@@ -57,7 +62,7 @@ def make_bsr_matvec(mesh, jac: BlockJacobian) -> Callable:
     blocks = jnp.concatenate([jac.D[:, None], jac.N], axis=1)   # (NC,5,V,V)
 
     def mv(x):
-        return jnp.einsum("ckij,ckj->ci", blocks, x[idx])
+        return einsum("ckij,ckj->ci", blocks, x[idx])
 
     return mv
 
@@ -70,8 +75,9 @@ def bsr_matvec(mesh, jac: BlockJacobian, x):
 def block_jacobi_inverse(D):
     """Batched small-matrix inverses for the block-Jacobi preconditioner.
 
-    Closed-form adjugate (n <= 4) rather than jnp.linalg.inv: TPU XLA has no
-    f64 LU decomposition, and unrolled cofactors map to pure VPU arithmetic.
+    Closed-form adjugate (n <= 4) rather than jnp.linalg.inv: unrolled
+    cofactors are plain elementwise arithmetic that fuses into one loop
+    over the cells, with no batched-LU library call per Newton step.
     """
     n = D.shape[-1]
     if n == 1:
@@ -124,22 +130,22 @@ def make_preconditioner(mesh, jac: BlockJacobian, kind: str = "bjacobi",
     if kind == "none":
         return lambda v: v
     Dinv = block_jacobi_inverse(jac.D)
-    apply_dinv = lambda v: jnp.einsum("cij,cj->ci", Dinv, v)
+    apply_dinv = lambda v: einsum("cij,cj->ci", Dinv, v)
     if kind == "bjacobi":
         return apply_dinv
     if kind == "bsgs":
         # the defect-correction sweep z + D^-1(v - J z) reduces exactly to
         # block-Jacobi z' = D^-1 v - (D^-1 N) z_nbr (J = D + N), so one sweep
         # is a single 4-slot neighbour gather + one batched einsum — the
-        # cheapest-per-sweep smoother shape on TPU (no scatters, no colors)
-        DN = jnp.einsum("cij,ckjl->ckil", Dinv, jac.N)
+        # cheapest-per-sweep smoother shape (no scatters, no colors)
+        DN = einsum("cij,ckjl->ckil", Dinv, jac.N)
         nbrs = _nbrs_in_range(mesh)
 
         def pc(v):
             dv = apply_dinv(v)
             z = dv
             for _ in range(sweeps):
-                z = dv - jnp.einsum("ckij,ckj->ci", DN, z[nbrs])
+                z = dv - einsum("ckij,ckj->ci", DN, z[nbrs])
             return z
         return pc
     if kind == "bcsgs":
@@ -168,7 +174,7 @@ def make_preconditioner(mesh, jac: BlockJacobian, kind: str = "bjacobi",
 def make_line_smoother(mesh, jac: BlockJacobian, lines, sweeps: int = 1):
     """Line-implicit block smoother: exact block-tridiagonal solves along
     strong-coupling lines (batched Thomas), with off-line coupling lagged
-    Jacobi-style between sweeps. The TPU counterpart of line-implicit /
+    Jacobi-style between sweeps. The batched counterpart of line-implicit /
     DDADI smoothers for boundary-layer stiffness.
     """
     nv = jac.D.shape[-1]
@@ -188,7 +194,7 @@ def make_line_smoother(mesh, jac: BlockJacobian, lines, sweeps: int = 1):
     nbrs_in = _nbrs_in_range(mesh)
 
     def offdiag_off(z):
-        return jnp.einsum("ckij,ckj->ci", N_off, z[nbrs_in])
+        return einsum("ckij,ckj->ci", N_off, z[nbrs_in])
 
     from .lines import block_thomas
 
@@ -213,7 +219,7 @@ def make_colored_sgs(mesh, jac: BlockJacobian, Dinv, blocks,
                      sweeps: int = 1):
     """Multicolor block symmetric Gauss-Seidel.
 
-    The TPU equivalent of the reference's bjacobi+ILU0 / BLASTed SGS sweeps
+    The data-parallel form of the reference's bjacobi+ILU0 / BLASTed SGS sweeps
     (testcases/defaults.solverc, perftest/): cells of one adjacency color
     share no faces, so each color updates as one batched 4x4 solve with the
     freshest neighbour values. One sweep = forward + backward color passes.
@@ -232,16 +238,16 @@ def make_colored_sgs(mesh, jac: BlockJacobian, Dinv, blocks,
 
     # static per-color gathers + Dinv folding, done once per Newton step
     col_nbrs = [nbrs_in[rows_all[c]] for c in range(ncol)]
-    col_DN = [jnp.einsum("rij,rkjl->rkil", Dinv[rows_all[c]],
+    col_DN = [einsum("rij,rkjl->rkil", Dinv[rows_all[c]],
                          blocks[rows_all[c]]) for c in range(ncol)]
 
     def pc(v):
-        dv = jnp.einsum("cij,cj->ci", Dinv, v)       # one whole-mesh solve
+        dv = einsum("cij,cj->ci", Dinv, v)       # one whole-mesh solve
         col_dv = [dv[rows_all[c]] for c in range(ncol)]
 
         def color_update(z, c):
             zn = z[col_nbrs[c]]                      # (R,4,nv)
-            znew = col_dv[c] - jnp.einsum("rkij,rkj->ri", col_DN[c], zn)
+            znew = col_dv[c] - einsum("rkij,rkj->ri", col_DN[c], zn)
             return z.at[rows_all[c]].set(znew)
 
         z = jnp.zeros_like(v)
@@ -257,29 +263,11 @@ def make_colored_sgs(mesh, jac: BlockJacobian, Dinv, blocks,
 
 # auto-switch: above this many local vector elements the gmres basis work
 # runs the blocked-MGS low-traffic path (see gmres docstring); below it the
-# classic CGS2 path is kept bit-identical (it protects the 13k-cell bench
-# trajectory, and at small n the blocked loop's serialized row-block matmuls
-# cost more dispatch than they save in HBM reads — measured,
-# docs/BENCH_NOTES.md round 5)
+# classic CGS2 path is kept bit-identical (it protects the small-mesh
+# regression trajectories, and at small n the blocked loop's serialized
+# row-block products cost more dispatch than they save in basis reads)
 _BLOCKED_N_THRESHOLD = 262_144
-_ROW_BLOCK = 8           # f32 sublane tile height
-
-
-def _basis_row_set(V, w, j):
-    """V.at[j].set(w) for the blocked-path Krylov basis.
-
-    On TPU with a lane-divisible n this goes through the aliased Pallas
-    row write (solver/pallas_banded.py row_set): XLA's dynamic-update-
-    slice inside the while_loop re-materializes the whole (mpad, n) basis
-    at large n (the dominant share of the round-5 ortho cost,
-    PROBE_GMRES.json), while the aliased kernel touches only row j."""
-    import os
-    n = V.shape[1]
-    if (jax.devices()[0].platform == "tpu" and n % 128 == 0
-            and not os.environ.get("FVENS_NO_ROWSET")):
-        from .pallas_banded import row_set
-        return row_set(V, w, j)
-    return V.at[j].set(w)
+_ROW_BLOCK = 8           # basis rows per blocked-MGS product
 
 
 def _mgs_pass(V, w, rows, ar):
@@ -288,7 +276,7 @@ def _mgs_pass(V, w, rows, ar):
     Reads only ceil(rows/8)*8 basis rows (rows is traced; the classic CGS2
     passes read all m+1 rows through a zero mask — at FGMRES(90) that is
     ~2x the traffic actually needed, and the basis reads dominate the
-    per-iteration cost at >=200k cells; docs/BENCH_NOTES.md round 5).
+    per-iteration cost at >=200k cells).
     Each 8-row block is projected out of w before the next block is read
     (block-MGS), which is numerically at least as strong as one classical
     pass. Rows beyond `rows`-1 are still zero in V, so the rounded-up tail
@@ -300,8 +288,8 @@ def _mgs_pass(V, w, rows, ar):
     def blk(i, carry):
         h, wv = carry
         Vb = jax.lax.dynamic_slice(V, (i * B, 0), (B, n))
-        hb = ar(Vb @ wv)
-        wv = wv - hb @ Vb
+        hb = ar(matmul(Vb, wv))
+        wv = wv - matmul(hb, Vb)
         return jax.lax.dynamic_update_slice(h, hb, (i * B,)), wv
 
     h0 = jnp.zeros((mpad,), w.dtype)
@@ -317,7 +305,7 @@ def _rows_combine(M, y, rows):
     def blk(i, acc):
         Mb = jax.lax.dynamic_slice(M, (i * B, 0), (B, n))
         yb = jax.lax.dynamic_slice(y, (i * B,), (B,))
-        return acc + yb @ Mb
+        return acc + matmul(yb, Mb)
 
     return jax.lax.fori_loop(0, nblk, blk, jnp.zeros(n, M.dtype))
 
@@ -390,12 +378,12 @@ def gmres(matvec: Callable, b, x0, pc: Callable, restart: int = 30,
             w = mv(z)
             Z = Z.at[j].set(z)
 
-            # modified Gram-Schmidt as two dense passes (MXU-shaped)
+            # classical Gram-Schmidt as two dense passes (CGS2)
             mask = (jnp.arange(m + 1) <= j).astype(dtype)
-            h = ar(V @ w) * mask
-            w = w - V.T @ h
-            h2 = ar(V @ w) * mask        # one re-orthogonalization pass
-            w = w - V.T @ h2
+            h = ar(matmul(V, w)) * mask
+            w = w - matmul(V.T, h)
+            h2 = ar(matmul(V, w)) * mask   # one re-orthogonalization pass
+            w = w - matmul(V.T, h2)
             h = h + h2
             hn = jnp.sqrt(ar(jnp.sum(w * w)))
             V = V.at[j + 1].set(w / jnp.maximum(hn, 1e-300))
@@ -429,13 +417,13 @@ def gmres(matvec: Callable, b, x0, pc: Callable, restart: int = 30,
         R = R + jnp.diag(jnp.where(used, 0.0, 1.0))
         rhs_t = jnp.where(used, g[:m], 0.0)
 
-        # explicit back-substitution (TPU f64 has no triangular_solve)
+        # explicit back-substitution on the small (m, m) Hessenberg system
         def back(i, y):
             k = m - 1 - i
-            yk = (rhs_t[k] - jnp.dot(R[k], y)) / R[k, k]
+            yk = (rhs_t[k] - dot(R[k], y)) / R[k, k]
             return y.at[k].set(yk)
         y = jax.lax.fori_loop(0, m, back, jnp.zeros(m, dtype))
-        x = x + Z.T @ y
+        x = x + matmul(Z.T, y)
         return x, total_iters + j, res
 
     mpad = -(-(m + 1) // _ROW_BLOCK) * _ROW_BLOCK
@@ -475,7 +463,7 @@ def gmres(matvec: Callable, b, x0, pc: Callable, restart: int = 30,
                 w)
             h = h + h2
             hn = jnp.sqrt(ar(jnp.sum(w * w)))
-            V = _basis_row_set(V, w / jnp.maximum(hn, 1e-300), j + 1)
+            V = V.at[j + 1].set(w / jnp.maximum(hn, 1e-300))
             hcol = h[:m + 1].at[j + 1].set(hn)
 
             def rot(i, hc):
@@ -506,7 +494,7 @@ def gmres(matvec: Callable, b, x0, pc: Callable, restart: int = 30,
 
         def back(i, y):
             k = m - 1 - i
-            yk = (rhs_t[k] - jnp.dot(R[k], y)) / R[k, k]
+            yk = (rhs_t[k] - dot(R[k], y)) / R[k, k]
             return y.at[k].set(yk)
         y = jax.lax.fori_loop(0, m, back, jnp.zeros(m, dtype))
         ypad = jnp.zeros(mpad, dtype).at[:m].set(y)
@@ -538,15 +526,15 @@ def gmres_dr(matvec: Callable, b, x0, pc: Callable, U=None, k: int = 16,
 
     The reference reaches few Krylov iterations per Newton step through a
     sequential ILU0 (testcases/defaults.solverc:16-19); sequential sweeps
-    are latency-bound on TPU (docs/BENCH_NOTES.md), so the TPU-native route
-    to the same goal is SUBSPACE RECYCLING: carry k approximate slow
+    are latency-bound on a data-parallel device, so the route taken here to
+    the same goal is SUBSPACE RECYCLING: carry k approximate slow
     directions of the (slowly varying) Jacobian across Newton steps and
     deflate them from every solve. All added work is tall-skinny dense
-    algebra (C@w projections, one QR, one small SVD) — MXU-shaped.
+    algebra (C@w projections, one QR, one small SVD).
 
     Scheme (GCRO with SVD harvest — Parks et al. GCRO-DR, with the small
     harmonic-Ritz eigenproblem replaced by an SVD of the exact relation
-    A [U;Z] = [C;V] G, since TPU XLA has no nonsymmetric eig):
+    A [U;Z] = [C;V] G, since XLA has no nonsymmetric eig on accelerators):
       setup    C R = qr(A U),  U <- R^-T U       (so A U = C, C orthonormal)
       init     x += U^T (C r0), r -= C^T (C r0)
       Arnoldi  on (I - C^T C) A M^-1, storing B = C A Z
@@ -583,7 +571,7 @@ def gmres_dr(matvec: Callable, b, x0, pc: Callable, U=None, k: int = 16,
         """Rows of A -> L^-1 A with orthonormal rows (Cholesky QR over the
         device axis); returns (Q_rows, L). The jittered Gram diagonal plays
         the rank-deficiency role of the QR path's R-diag clamping."""
-        G = ar(A @ A.T)
+        G = ar(matmul(A, A.T))
         eps = (jnp.asarray(1e-12, dtype) * jnp.trace(G) / max(k, 1)
                + jnp.asarray(1e-300 if dtype == jnp.float64 else 1e-37,
                              dtype))
@@ -623,9 +611,9 @@ def gmres_dr(matvec: Callable, b, x0, pc: Callable, U=None, k: int = 16,
     def cycle(x, total_iters):
         r = bf - mv(x)
         if have_U:
-            q = ar(C @ r)
-            x = x + Ur.T @ q
-            r = r - C.T @ q
+            q = ar(matmul(C, r))
+            x = x + matmul(Ur.T, q)
+            r = r - matmul(C.T, q)
         beta = jnp.sqrt(ar(jnp.sum(r * r)))
 
         V = pv(jnp.zeros((m + 1, n), dtype))
@@ -647,15 +635,15 @@ def gmres_dr(matvec: Callable, b, x0, pc: Callable, U=None, k: int = 16,
             w = mv(z)
             Z = Z.at[j].set(z)
             if have_U:
-                bcol = ar(C @ w)
-                w = w - C.T @ bcol
+                bcol = ar(matmul(C, w))
+                w = w - matmul(C.T, bcol)
                 B = B.at[:, j].set(bcol)
 
             mask = (jnp.arange(m + 1) <= j).astype(dtype)
-            h = ar(V @ w) * mask
-            w = w - V.T @ h
-            h2 = ar(V @ w) * mask
-            w = w - V.T @ h2
+            h = ar(matmul(V, w)) * mask
+            w = w - matmul(V.T, h)
+            h2 = ar(matmul(V, w)) * mask
+            w = w - matmul(V.T, h2)
             h = h + h2
             hn = jnp.sqrt(ar(jnp.sum(w * w)))
             V = V.at[j + 1].set(w / jnp.maximum(hn, 1e-300))
@@ -689,12 +677,12 @@ def gmres_dr(matvec: Callable, b, x0, pc: Callable, U=None, k: int = 16,
 
         def back(i, y):
             kk = m - 1 - i
-            yk = (rhs_t[kk] - jnp.dot(Rt[kk], y)) / Rt[kk, kk]
+            yk = (rhs_t[kk] - dot(Rt[kk], y)) / Rt[kk, kk]
             return y.at[kk].set(yk)
         y = jax.lax.fori_loop(0, m, back, jnp.zeros(m, dtype))
-        x = x + Z.T @ y
+        x = x + matmul(Z.T, y)
         if have_U:
-            x = x - Ur.T @ (B @ y)
+            x = x - matmul(Ur.T, matmul(B, y))
         return x, total_iters + j, res, (V, Z, B, H, j)
 
     x = x0.reshape(n)
@@ -731,7 +719,7 @@ def gmres_dr(matvec: Callable, b, x0, pc: Callable, U=None, k: int = 16,
     _, _, Vh = jnp.linalg.svd(G, full_matrices=False)
     Y = Vh[-k:, :]                                  # k smallest, (k, k+m)
     ZU = jnp.concatenate([Ur, Z], axis=0)           # (k+m, n)
-    U_new = Y @ ZU                                  # (k, n)
+    U_new = matmul(Y, ZU)                           # (k, n)
     # ORTHONORMALIZE the harvested space (span is all that matters; C is
     # rebuilt from A U next solve). Without this the recycled directions
     # collapse toward the same slow modes across Newton steps, R^-T U

@@ -3,8 +3,8 @@
 The reference reaches ILU(0) strength through BLASTed's sequential
 factorizations (FVENS src/linalg/alinalg.cpp:301-384, default PC
 testcases/defaults.solverc:16-19). Sequential triangular sweeps are
-latency-bound on TPU (measured, docs/BENCH_NOTES.md pc='bline' study), so
-the TPU-native route to the same Krylov-iteration reduction is a coarse
+latency-bound on a data-parallel device, so the route taken here to the
+same Krylov-iteration reduction is a coarse
 GRID: a smoothed defect correction transported through a hierarchy of
 graph-aggregated levels, where every operation is a batched gather+einsum
 (fine) shrinking geometrically with level.
@@ -21,7 +21,7 @@ Design:
     ONE jax.ops.segment_sum of (N*(S+1), V, V) blocks per level.
   - V-cycle with block-Jacobi defect-correction sweeps as the smoother
     (z' = D^-1 v - (D^-1 N) z_nbr, one slot gather + one einsum per
-    sweep: the cheapest smoothing op on TPU, docs/BENCH_NOTES.md) and a
+    sweep: the cheapest smoothing op) and a
     deeper sweep stack on the coarsest level.
 
 Everything device-side is shape-static; the hierarchy is an integer pytree
@@ -38,6 +38,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .linear import block_jacobi_inverse
+from .precision import einsum, vdot
 
 
 def _round_up(n: int, m: int) -> int:
@@ -292,12 +293,12 @@ def make_mg_preconditioner(mesh, jac, hierarchy: MGHierarchy,
     nbrs = _nbrs_in_range(mesh)
     for lv in hierarchy.levels:
         Dinv = block_jacobi_inverse(D)
-        DN = jnp.einsum("cij,ckjl->ckil", Dinv, N)
+        DN = einsum("cij,ckjl->ckil", Dinv, N)
         lev_ops.append((Dinv, DN, D, N, nbrs, lv))
         D, N = _galerkin(lv, D, N)
         nbrs = lv.c_nbrs
     Dinv = block_jacobi_inverse(D)
-    DN = jnp.einsum("cij,ckjl->ckil", Dinv, N)
+    DN = einsum("cij,ckjl->ckil", Dinv, N)
     lev_ops.append((Dinv, DN, D, N, nbrs, None))
     nlev = len(lev_ops)
 
@@ -316,18 +317,18 @@ def make_mg_preconditioner(mesh, jac, hierarchy: MGHierarchy,
         Exact identity: z + D^-1 (v - (D+N) z) = D^-1 v - (D^-1 N) z_nbr."""
         if n <= 0:
             return z if z is not None else jnp.zeros_like(v)
-        dv = jnp.einsum("cij,cj->ci", Dinv, v)
+        dv = einsum("cij,cj->ci", Dinv, v)
         if z is None:
             z, n = dv, n - 1
         for _ in range(n):
-            z = dv - jnp.einsum("ckij,ckj->ci", DN, z[nbrs])
+            z = dv - einsum("ckij,ckj->ci", DN, z[nbrs])
         return z
 
     def matvec(Dl, Nl, nbrs, x):
         blocks = jnp.concatenate([Dl[:, None], Nl], axis=1)
         self_idx = jnp.arange(Dl.shape[0], dtype=nbrs.dtype)
         idx = jnp.concatenate([self_idx[:, None], nbrs], axis=1)
-        return jnp.einsum("ckij,ckj->ci", blocks, x[idx])
+        return einsum("ckij,ckj->ci", blocks, x[idx])
 
     def vcycle(l, v, z):
         Dinv, DN, Dl, Nl, nbrs, lv = lev_ops[l]
@@ -349,8 +350,8 @@ def make_mg_preconditioner(mesh, jac, hierarchy: MGHierarchy,
         # operators; omega* = <r, Ae>/<Ae, Ae> makes the correction a
         # monotone residual step at the cost of one matvec
         Ae = matvec(Dl, Nl, nbrs, e)
-        den = jnp.vdot(Ae, Ae)
-        omega = jnp.where(den > 0, jnp.vdot(r, Ae) / jnp.maximum(den, 1e-300),
+        den = vdot(Ae, Ae)
+        omega = jnp.where(den > 0, vdot(r, Ae) / jnp.maximum(den, 1e-300),
                           jnp.asarray(0.0, dtp)).astype(dtp)
         omega = jnp.clip(omega, 0.0, 2.0)
         z = z + omega * e

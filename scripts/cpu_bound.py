@@ -8,7 +8,7 @@ Jacobian + ILU0 factorization + FGMRES with ILU0 applies — SURVEY.md
 sec 3.2-3.5, testcases/defaults.solverc) divided by a GENEROUS single-socket
 roofline. Every modeling choice errs in the CPU's favour, so
 
-    T_cpu_fvens >= T_bound   =>   vs_baseline_bound = (T_bound/10)/T_tpu
+    T_cpu_fvens >= T_bound   =>   vs_baseline_bound = (T_bound/10)/T_dev
 
 is an honest lower bound on the true vs-FVENS ratio (and bench.py also
 reports the measured JAX-CPU stand-in, which bounds it from the other side).
@@ -33,7 +33,7 @@ Cost model per pseudo-time step (N cells, 2-D hybrid mesh):
     traffic 2x matrix (read+write)
   - k FGMRES iters, each: BSR SpMV (32 flop/block-element) + L,U solves
     (same class)    -> ~300N flop/iter, traffic 2x matrix stream/iter
-  Steps and k: the TPU solve's own step count (same algorithm family, same
+  Steps and k: the device solve's own step count (same algorithm family, same
   CFL schedule) and k=5 Krylov iters/step for ILU0+FGMRES at rtol 1e-1
   (flattering to the CPU: fewer iterations = less work; our weaker PC needs
   ~68). Matrix streams are charged to DRAM only when the matrix exceeds
@@ -98,7 +98,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--cells", type=int, required=True)
     ap.add_argument("--steps", type=int, required=True,
-                    help="pseudo-time steps of the measured TPU solve")
+                    help="pseudo-time steps of the measured device solve")
     ap.add_argument("--k_iters", type=float, default=5.0,
                     help="assumed FGMRES iters/step for ILU0 at rtol 1e-1")
     ap.add_argument("--roofline", default="/tmp/roofline.json",

@@ -1,4 +1,4 @@
-"""Empirically grounded single-socket-CPU FVENS estimate (VERDICT r3 next #2).
+"""Empirically grounded single-socket-CPU FVENS estimate.
 
 Replaces the vacuous analytic bound (scripts/cpu_bound.py,
 BASELINE_CPU_BOUND.json — it charged the CPU zero DRAM traffic and perfect
@@ -30,7 +30,7 @@ vs_fvens_estimate an UPPER bound on what any accelerator can claim):
       therefore taken as 1.0 by construction, not measured — this host has
       1 vCPU (n_host_cpus in BASELINE_CPU.json), so multi-core scaling
       cannot be measured here; perfect scaling bounds it from above.
-  steps        = the measured TPU trajectory's step count at the SAME
+  steps        = the measured device trajectory's step count at the SAME
       stopping rule (same algorithm family, same CFL schedule); the
       reference's own ctrl budget for this case is <=150 steps to a softer
       tolerance (laminar-implicit.ctrl:79-100).
@@ -112,7 +112,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--jacdir", default="/tmp/fvens_jac")
     ap.add_argument("--steps", type=int, default=79,
-                    help="pseudo-time steps of the measured 13k TPU solve")
+                    help="pseudo-time steps of the measured 13k device solve")
     ap.add_argument("--bigmesh-steps", type=int, nargs="*", default=[35],
                     help="steps of the measured bigmesh solves, one per "
                          "exported size in manifest order "
@@ -165,9 +165,9 @@ def main() -> int:
         rec["t_fvens_1core_s"] = avg["t_1core_s"]
     if big:
         # one record per exported size (204.8k, 819.2k, ...), each scaled
-        # by its own measured TPU-solve step count at the same stopping
+        # by its own measured device-solve step count at the same stopping
         # rule (BENCH_BIGMESH.json) — the sizes where the 10x bar is
-        # physically winnable (VERDICT r4 next #2)
+        # physically winnable
         steps_list = list(args.bigmesh_steps)
         steps_list += [steps_list[-1]] * (len(big) - len(steps_list))
         recs = []

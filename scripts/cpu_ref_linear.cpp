@@ -1,5 +1,5 @@
 // Native single-core microbenchmark of the reference's per-step linear
-// stack on a REAL exported bench-case Jacobian (VERDICT r3 next #2).
+// stack on a REAL exported bench-case Jacobian.
 //
 // Reproduces the algorithmic content of FVENS's implicit linear solve at
 // its shipped settings (testcases/visc-naca0012/opts.solverc,

@@ -1,10 +1,9 @@
-"""Re-price the preconditioner space at large mesh sizes (VERDICT r4 #3).
+"""Re-price the preconditioner space at large mesh sizes.
 
-The round-3 PC saturation study priced every preconditioner in the slot
-GATHER layout; the cell-minor banded layout (round 4) and the Pallas
-kernels (round 5) changed the cost of a sweep, and the Gram-Schmidt basis
-cost per Krylov iteration grows with the iteration count — so the
-sweeps-vs-iterations optimum must be re-measured, not assumed.
+The cost of a sweep depends on the layout (slot gather or banded) and the
+device, and the Gram-Schmidt basis cost per Krylov iteration grows with
+the iteration count — so the sweeps-vs-iterations optimum must be
+measured on the device, not assumed.
 
 For each (pc, sweeps, restart) configuration this runs ONE right-
 preconditioned GMRES solve to the solver's Krylov floor (rtol 1e-2) on
@@ -52,9 +51,8 @@ def main() -> int:
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/fvens_tpu/jax"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from fvens_tpu.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from scripts.bench_bigmesh import build_case
@@ -63,10 +61,8 @@ def main() -> int:
     from fvens_tpu.solver.banded import (banded_dn_blocks, banded_structure,
                                          banded_blocks)
     from fvens_tpu.solver.linear import block_jacobi_inverse, gmres
-    from fvens_tpu.solver.pallas_banded import (make_banded_bsgs_pallas,
-                                                make_banded_matvec_pallas,
-                                                pallas_supported)
     from fvens_tpu.solver.banded import make_banded_bsgs, make_banded_matvec
+    from fvens_tpu.solver.precision import einsum
 
     ni, nj = (int(x) for x in args.size.split("x"))
     case, mesh, u0 = build_case(ni, nj, platform=args.platform)
@@ -91,10 +87,7 @@ def main() -> int:
     D = jac.D
     del jac
     jax.block_until_ready((Bt, DNbt, rhs))
-    use_pallas = (jax.devices()[0].platform == "tpu"
-                  and pallas_supported(bl, D.shape[0], jnp.float32))
-    print(f"# {args.size}: NC={mesh.n_cells}, pallas={use_pallas}",
-          flush=True)
+    print(f"# {args.size}: NC={mesh.n_cells}", flush=True)
 
     results = []
     for cfgs in args.configs:
@@ -103,14 +96,9 @@ def main() -> int:
 
         @jax.jit
         def one_solve(b, D, B, Di, DN):
-            if use_pallas:
-                mv = make_banded_matvec_pallas(D, B, offsets)
-            else:
-                mv = make_banded_matvec(D, B, offsets)
+            mv = make_banded_matvec(D, B, offsets)
             if pc_kind == "bjacobi":
-                pc = lambda v: jnp.einsum("cij,cj->ci", Di, v)
-            elif use_pallas:
-                pc = make_banded_bsgs_pallas(Di, DN, offsets, sweeps)
+                pc = lambda v: einsum("cij,cj->ci", Di, v)
             else:
                 pc = make_banded_bsgs(Di, DN, offsets, sweeps)
             return gmres(mv, b, jnp.zeros_like(b), pc, restart=restart,
@@ -128,8 +116,8 @@ def main() -> int:
                "cfl": args.cfl, "iters": int(iters),
                "relres": float(relres), "wall_s": wall,
                "ms_per_iter": wall / max(int(iters), 1) * 1e3,
-               "pallas": use_pallas,
-               "platform": jax.devices()[0].platform}
+               "platform": jax.devices()[0].platform,
+               "device_kind": jax.devices()[0].device_kind}
         print(json.dumps(rec), flush=True)
         results.append(rec)
 

@@ -73,11 +73,14 @@ def test_structure_covers_omesh_exactly():
 
 
 def test_structure_refuses_unstructured_mesh():
-    """A genuinely unstructured hybrid mesh has a flat offset histogram —
-    the build must return None so the solver keeps the gather path.
-    (The reference's hybrid tri/quad fixture, tests/common-input.)"""
-    from fvens_tpu.mesh.reader import read_mesh
-    md = read_mesh("/root/reference/tests/common-input/2dcylinderhybrid.msh")
+    """A genuinely unstructured mesh has a flat offset histogram — the
+    build must return None so the solver keeps the gather path. A
+    triangulated cylinder with its cells shuffled by a seeded permutation
+    has no band structure left to find."""
+    from fvens_tpu.mesh.meshgen import cylinder_family
+    from fvens_tpu.mesh.ordering import reorder_mesh
+    md = cylinder_family(1, tri=True)[0]
+    md = reorder_mesh(md, np.random.default_rng(0).permutation(md.nelem))
     cm = compile_mesh(md, BCS, dtype=jnp.float64)
     assert banded_structure(cm) is None
 

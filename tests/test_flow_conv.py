@@ -184,9 +184,8 @@ def test_entropy_convergence_order(refdir, flux, gradient):
 @pytest.mark.slow
 def test_venkat_entropy_convergence_order(refdir):
     """Venkatakrishnan-limited reconstruction to convergence on the 2dcyl
-    family: entropy order must stay in the second-order band (VERDICT r2
-    item 7: BJ/Venkat previously had only freestream-preservation gates;
-    the reference itself commits no Venkat golden, so the order band of
+    family: entropy order must stay in the second-order band (the
+    reference itself commits no Venkat golden, so the order band of
     flow_conv.cpp:78-89 is the quantitative gate)."""
     cfg = cyl_config("HLLC", "LEASTSQUARES")
     cfg = __import__("dataclasses").replace(

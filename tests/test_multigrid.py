@@ -1,6 +1,6 @@
 """Aggregation-multigrid preconditioner tests (solver/multigrid.py).
 
-The AMG hierarchy is the TPU-native counterpart of the reference's
+The AMG hierarchy is the data-parallel counterpart of the reference's
 ILU(0)-strength preconditioning (FVENS src/linalg/alinalg.cpp:301-384):
   - structural invariants of the aggregation/Galerkin maps
   - Galerkin coarse operator equals the explicit R A R^T (dense check)
@@ -125,7 +125,7 @@ def test_amg_preconditions_gmres():
     """Fixed-budget GMRES with the V-cycle reaches a small relative
     residual and beats its own smoother-only budget (V(2,2) vs 2 sweeps).
 
-    Measured honestly (docs/BENCH_NOTES.md round-3 AMG study): on these
+    Measured honestly: on these
     advection-dominated systems the piecewise-constant coarse correction
     removes only ~6% of the smoothed residual even with an EXACT coarse
     solve, so the V-cycle does NOT beat an equal-cost bsgs sweep stack

@@ -1,10 +1,11 @@
 """Mixed-precision deep convergence and checkpoint/resume equivalence.
 
-The BASELINE.md driver metric demands 1e-10 steady residuals; on TPU f64 is
-software-emulated, so the production path runs an f32 Jacobian/Krylov
-direction inside an f64 residual/update loop (LinearSolverConfig.
-mixed_precision). These tests pin that mode's correctness on a small
-laminar cylinder case, plus the checkpoint/resume path the CLI exposes.
+The BASELINE.md metric demands 1e-10 steady residuals; the mixed path runs
+an f32 Jacobian/Krylov direction inside an f64 residual/update loop
+(LinearSolverConfig.mixed_precision). These tests pin that mode's
+correctness on a small laminar cylinder case, that its f32 products run at
+full precision whatever the device's default, and the checkpoint/resume
+path the CLI exposes.
 """
 
 import jax.numpy as jnp
@@ -51,7 +52,7 @@ def _solve(mesh, space, mixed: bool, tol: float = 1e-10,
 
 def test_mixed_precision_deep_convergence():
     """f32 direction / f64 residual reaches 1e-10 and reproduces the plain
-    f64 functionals (the production TPU mode, docs/BENCH_NOTES.md)."""
+    f64 functionals (the mode bench.py runs)."""
     md = cylinder_omesh(32, 14, stretch=1.2)
     mesh = compile_mesh(md, BCS, dtype=jnp.float64)
     space = _viscous_space()
@@ -72,7 +73,7 @@ def test_mixed_precision_deep_convergence():
 def test_bline_mixed_precision_stays_f32():
     """pc='bline' under mixed precision: the line smoother's mask arrays are
     built in f64 on the host and must not promote the f32 Jacobian blocks
-    back to (TPU-emulated) f64. Pin both the dtype and the solution."""
+    back to f64. Pin both the dtype and the solution."""
     import jax
 
     from fvens_tpu.solver.jacobian import add_pseudotime_term
@@ -115,6 +116,93 @@ def test_bline_mixed_matches_bcsgs_functionals():
     _, f_b = surface_data(space, mesh, u_b, [2])
     _, f_c = surface_data(space, mesh, u_c, [2])
     np.testing.assert_allclose(np.asarray(f_b), np.asarray(f_c), atol=1e-8)
+
+
+def _dot_generals(jaxpr):
+    """Every dot_general equation in a jaxpr, sub-jaxprs included (while,
+    cond, scan, pjit and custom-rule bodies)."""
+    def subs(v):
+        if hasattr(v, "eqns"):
+            yield v
+        elif hasattr(v, "jaxpr") and hasattr(v.jaxpr, "eqns"):
+            yield v.jaxpr
+        elif isinstance(v, (tuple, list)):
+            for x in v:
+                yield from subs(x)
+
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            yield eqn
+        for v in eqn.params.values():
+            for sub in subs(v):
+                yield from _dot_generals(sub)
+
+
+@pytest.mark.parametrize("pc,banded", [
+    ("bsgs", False), ("bsgs", True), ("bcsgs", False), ("ilu0", False),
+    ("bline", False), ("amg", False)])
+def test_mixed_step_f32_products_are_highest(pc, banded):
+    """On the GPU a float32 dot_general without a precision may run in
+    TF32 (~3 digits). Every f32 product of the mixed-precision implicit
+    step must carry precision HIGHEST on both operands."""
+    import jax
+    from jax.lax import Precision
+
+    md = cylinder_omesh(24, 10, stretch=1.2)
+    mesh = compile_mesh(md, BCS, dtype=jnp.float64)
+    space = _viscous_space()
+    lin = LinearSolverConfig(restart=10, maxiter=10, rtol=1e-2, pc=pc,
+                             pc_sweeps=2, mixed_precision=True, banded=banded,
+                             mg_levels=2)
+    be = SteadyBackwardEuler(space, PseudoTimeConfig(), lin,
+                             NonlinearUpdateConfig(scheme="full"))
+    be._lines(mesh)
+    kw = dict(mg=be._mg(mesh), ilu=be._ilu(mesh), bl=be._banded(mesh),
+              lmesh=mesh.astype(jnp.float32))
+    assert (kw["bl"] is not None) == banded
+    u = jnp.tile(space.uinf, (mesh.NC, 1)).astype(jnp.float64)
+    jaxpr = jax.make_jaxpr(
+        lambda u: be._step(mesh, u, 100.0, 1e-2, **kw))(u).jaxpr
+    f32 = [e for e in _dot_generals(jaxpr)
+           if any(v.aval.dtype == jnp.float32 for v in e.invars)]
+    assert f32, "the mixed step should contract in f32"
+    for e in f32:
+        assert e.params["precision"] == (Precision.HIGHEST,
+                                         Precision.HIGHEST), e
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+def test_gmres_f32_products_are_highest(blocked):
+    """Both Gram-Schmidt paths of gmres (CGS2 and blocked MGS) and the
+    deflated gmres_dr pin HIGHEST on their f32 basis products."""
+    import jax
+    from jax.lax import Precision
+
+    from fvens_tpu.solver.linear import gmres, gmres_dr
+
+    A = jnp.eye(16, dtype=jnp.float32) * 3.0 + 0.1
+    b = jnp.ones((4, 4), jnp.float32)
+    mv = lambda x: (A @ x.reshape(16)).reshape(4, 4)
+
+    def run(b):
+        x, _, _ = gmres(mv, b, jnp.zeros_like(b), lambda v: v, restart=5,
+                        maxiter=5, blocked=blocked)
+        xd = gmres_dr(mv, b, jnp.zeros_like(b), lambda v: v, U=None, k=2,
+                      restart=5, maxiter=5)[0]
+        return x, xd
+
+    jaxpr = jax.make_jaxpr(run)(b).jaxpr
+    ours = [e for e in _dot_generals(jaxpr)
+            if e.params["precision"] is not None]
+    assert len(ours) >= 4
+    # the test's own operator (A @ x) is the only unpinned product
+    unpinned = [e for e in _dot_generals(jaxpr)
+                if e.params["precision"] is None
+                and e.invars[0].aval.shape != (16, 16)]
+    assert not unpinned, unpinned
+    for e in ours:
+        assert e.params["precision"] == (Precision.HIGHEST,
+                                         Precision.HIGHEST)
 
 
 def test_checkpoint_resume_equivalence(tmp_path):

@@ -342,7 +342,7 @@ def test_ilu0_preconditioned_solve_converges():
     """Full implicit solve with pc='ilu0' (Chow-Patel sweeps at practical
     counts) reaches the same converged state as the bsgs solve.
 
-    Measured (docs/BENCH_NOTES.md round 3): on these Jacobians even the
+    Measured: on these Jacobians even the
     EXACT ILU0 is weaker per Krylov iteration than the degree-6
     block-Jacobi Neumann polynomial, so the gate here is correctness and
     a bounded iteration overhead, not superiority."""
